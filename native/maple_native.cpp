@@ -1,11 +1,11 @@
 // Native genome-list kernel library.
 //
-// C++ twin of maple_tpu/core/kernels.py + genomelist.py: the exact sparse
+// C++ twin of maple_jax/core/kernels.py + genomelist.py: the exact sparse
 // partial-likelihood kernels over run-length genome lists (two-pointer
 // merges with the {R,N,O,nuc}^2 case matrix), written for bit-identical
 // IEEE-double results with the Python host kernels (which are themselves
 // bit-identical to the reference implementation).  See
-// maple_tpu/native/bridge.py for the ctypes binding.
+// maple_jax/native/bridge.py for the ctypes binding.
 //
 // Exactness notes:
 //  - all arithmetic is plain double in the same order as the Python code;
@@ -198,7 +198,7 @@ static inline uint64_t prof_now() {
 #endif
 
 // EM accumulator state (reference expectationMaximizationCalculationRates
-// :10077-10947; Python twin maple_tpu/models/em.py).  One per Store; the
+// :10077-10947; Python twin maple_jax/models/em.py).  One per Store; the
 // host drives the tree traversal and calls em_branch per branch, keeping
 // Python-float-op order for byte parity.  Estimators stay host-side.
 struct EMState {
@@ -2891,9 +2891,9 @@ int k_num_non4(Store *s, int64_t v) {
 // ======================================================================
 // Native placement engine: stepwise-addition DFS + placement + dirty
 // propagation run entirely in C++ over store-owned vectors.  A direct
-// port of maple_tpu/search/placement.py (find_best_parent_for_new_sample
+// port of maple_jax/search/placement.py (find_best_parent_for_new_sample
 // :36-246, place_sample_on_tree :397-670) and
-// maple_tpu/runtime/partials.py (update_partials :214-450,
+// maple_jax/runtime/partials.py (update_partials :214-450,
 // make_node_reference :547-595, root_vector :145-171) — reference
 // findBestParentForNewSample :7912-8293, placeSampleOnTree :8370-8710,
 // updatePartials :5479-5817, makeNodeReference :8296-8353.
@@ -4395,7 +4395,7 @@ static FindResult E_find_best_parent(Engine *E, int64_t diffs, int sample) {
 // quality is pinned by LK-tolerance tests (tests/test_beam_placement.py).
 // With `seeds`, the crawl is *seeded*: instead of starting at the root's
 // children it starts best-first expansion at the given node set (the
-// device proxy screen's top-M candidates, maple_tpu/parallel/
+// device proxy screen's top-M candidates, maple_jax/parallel/
 // proxy_placer.py), plus the first seeds' ancestor chains for upward
 // coverage, deduplicating visits across overlapping seed subtrees.  Stop
 // rule = `seed_budget` consecutive non-improving scored nodes.  Same
@@ -4962,7 +4962,7 @@ static int E_place_sample(Engine *E, int node, int64_t new_partials,
 // Native SPR engine: the full sequential topology-improvement sweep
 // (startTopologyUpdates -> traverseTreeForTopologyUpdate ->
 // findBestParentTopology -> cutAndPasteNode -> placeSubtreeOnTree) over
-// store-owned vectors.  Port of maple_tpu/search/spr.py (reference
+// store-owned vectors.  Port of maple_jax/search/spr.py (reference
 // findBestParentTopology :6817-7724, placeSubtreeOnTree :8896-9187,
 // cutAndPasteNode :9188-9277, traverseTreeForTopologyUpdate :9287-9464,
 // startTopologyUpdates :9489-9573).  Default path only: no HnZ, no
@@ -7152,8 +7152,8 @@ static int E_blen_sweep(Engine *E, bool fast_pass, int64_t *updates_out) {
 }
 
 // ----------------------------------------------------------------------
-// Proxy-screen feature extraction (device MXU screen,
-// maple_tpu/parallel/proxy_placer.py).
+// Proxy-screen feature extraction (device proxy screen,
+// maple_jax/parallel/proxy_placer.py).
 //
 // One genome list -> sparse features over a D = d_hash + g_buckets
 // dimensional space:
@@ -7891,10 +7891,10 @@ static int E_apply_batch(Engine *E, std::vector<PlaceProp> &props,
 }
 
 // ----------------------------------------------------------------------
-// Device proxy-screen integration (maple_tpu/parallel/proxy_placer.py).
+// Device proxy-screen integration (maple_jax/parallel/proxy_placer.py).
 //
-// The TPU-native placement path replaces the reference's serial from-
-// root DFS (MAPLEv0.7.5.4.py:11692-11752, :7912-8293) with a device MXU
+// The device placement path replaces the reference's serial from-
+// root DFS (MAPLEv0.7.5.4.py:11692-11752, :7912-8293) with a device
 // proxy screen over every anchor followed by an engine-side *seeded*
 // best-first crawl: the screen supplies top-M candidate anchors per
 // query, phase A crawls from those seeds read-only against the live
@@ -8180,7 +8180,7 @@ long engine_export_query_feats(Engine *E, const int64_t *vids, long n,
 }
 
 // Store-level feature export for the rt-side device screens (the SPR
-// proxy screen, maple_tpu/parallel/batch_spr.py): same feature space as
+// proxy screen, maple_jax/parallel/batch_spr.py): same feature space as
 // engine_export_feats, over raw store vector handles the caller has
 // already translated to the global frame.
 long store_export_feats(Store *S, const int64_t *vids, long n,
@@ -8688,7 +8688,7 @@ int64_t engine_em(Engine *E) {
 // The reference's only parallel phase forks worker PROCESSES that
 // re-run the python search over copy-on-write state
 // (startTopologyUpdatesParallel :9580-9716, applySPRMovesParallel
-// :9470-9484; host twin maple_tpu/search/parallel_spr.py).  Here the
+// :9470-9484; host twin maple_jax/search/parallel_spr.py).  Here the
 // same contract runs as engine threads over the shared resident tree:
 // the proposal phase is read-only (worker temporaries live in
 // thread-local ownership sets, lazy totUp fills in a per-worker side

@@ -186,7 +186,7 @@ def main():
         description="Recurrent multi-nucleotide mutation report from a "
                     "MAPLE --SPRTA --estimateMAT output.")
     p.add_argument("--inputTSV", required=True,
-                   help="_metaData.tsv produced by MAPLE/maple-tpu")
+                   help="_metaData.tsv produced by MAPLE/maple-jax")
     p.add_argument("--thresholdProb", type=float, default=0.95,
                    help="minimum posterior probability per event")
     p.add_argument("--minNumDescendants", type=int, default=1,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device-path quality/throughput benchmark at scale (VERDICT r2 items
-2 and 8): run the device-batched placement (and optionally the device
+"""Device-path quality/throughput benchmark at scale: run the
+device-batched placement (and optionally the device
 SPR screen) on a synthetic pandemic-scale alignment and report, against
 the host-serial run on the same data:
 
@@ -17,8 +17,7 @@ device tree's LK can exceed the serial tree's.
 
 Usage:
   python scripts/benchmark_device.py --samples 10000 \
-      --workdir /tmp/scalebench [--backend cpu|tpu] [--mesh 8] [--spr] \
-      [--out DEVICE_r03.json]
+      --workdir scalebench [--mesh 8] [--spr] [--out device.jsonl]
 """
 import argparse
 import json
@@ -32,14 +31,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=10000)
-    ap.add_argument("--workdir", default="/tmp/scalebench")
+    ap.add_argument("--workdir", default="scalebench")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--mutRate", type=float, default=1.5)
-    ap.add_argument("--backend", default=None,
-                    help="cpu forces the virtual-device backend")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="virtual-device mesh size (0 = single device)")
-    ap.add_argument("--pallas", action="store_true")
+                    help="virtual CPU device mesh size (0 = single "
+                         "device); set JAX_PLATFORMS=cpu with it")
     ap.add_argument("--cores", type=int, default=1,
                     help="host cores for the device path's engine phases")
     ap.add_argument("--spr", action="store_true",
@@ -49,7 +46,7 @@ def main():
                          "configuration (--fast --placementBudget 200 "
                          "--numCores <cores>) instead of the 1-core "
                          "exact serial engine, with the device path on "
-                         "the fast-screen contract (VERDICT r4 item 1)")
+                         "the fast-screen contract)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -58,24 +55,22 @@ def main():
                                    + " --xla_force_host_platform_device_"
                                      f"count={args.mesh}")
     import jax
-    if args.backend:
-        jax.config.update("jax_platforms", args.backend)
 
     from benchmark_scale import ensure_dataset
-    from maple_tpu.analysis.rf import run_rf_mode
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import Run
+    from maple_jax.analysis.rf import run_rf_mode
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import Run
 
     aln, truth = ensure_dataset(args.workdir, args.samples, args.seed,
                                 args.mutRate, 0.2, 0.05)
     mesh = None
     if args.mesh:
-        from maple_tpu.parallel.mesh import make_mesh
+        from maple_jax.parallel.mesh import make_mesh
         mesh = make_mesh(args.mesh)
 
     res = {"samples": args.samples, "backend": jax.default_backend(),
            "mesh": dict(zip(mesh.axis_names, mesh.devices.shape))
-           if mesh else None, "pallas": args.pallas,
+           if mesh else None,
            "device_cores": args.cores,
            "comparator": "production" if args.production else "serial"}
 
@@ -106,7 +101,7 @@ def main():
     cfg_d = MapleConfig(input=aln, output=os.path.join(args.workdir,
                                                        "dev_dev"),
                         model="UNREST", overwrite=True,
-                        device_placement=True, device_pallas=args.pallas,
+                        device_placement=True,
                         numCores=args.cores, **dev_flags)
     rd = Run(cfg_d)
     rd.load()
@@ -146,9 +141,9 @@ def main():
 
     # --- optional device SPR screen pass ----------------------------------
     if args.spr:
-        from maple_tpu.parallel.batch_spr import device_topology_update
-        from maple_tpu.runtime.tree import set_all_dirty
-        from maple_tpu.search.spr import SprCounters
+        from maple_jax.parallel.batch_spr import device_topology_update
+        from maple_jax.runtime.tree import set_all_dirty
+        from maple_jax.search.spr import SprCounters
         set_all_dirty(rd.tree, rd.root)
         params = (cfg_d.strictTopologyStopRules,
                   cfg_d.allowedFailsTopology,
@@ -157,8 +152,7 @@ def main():
         t0 = time.time()
         counters = SprCounters()
         new_root, improvement = device_topology_update(
-            rd.rt, rd.root, params, counters=counters, mesh=mesh,
-            use_pallas=args.pallas)
+            rd.rt, rd.root, params, counters=counters, mesh=mesh)
         res["device_spr_s"] = round(time.time() - t0, 2)
         res["device_spr_improvement"] = round(improvement, 4)
         res["device_spr_moves"] = counters.topology_updates

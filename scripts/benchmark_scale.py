@@ -10,7 +10,7 @@ sizes, and report per size
   - placement throughput (seq/s) and phase timings,
   - final tree log-likelihood,
   - Robinson-Foulds distance to the truth topology (the repo's own Day
-    1985 RF mode, maple_tpu/analysis/rf.py — the reference reuses its
+    1985 RF mode, maple_jax/analysis/rf.py — the reference reuses its
     own --inputRFtrees mode the same way),
 
 writing one JSON line per size to <workdir>/scale_results.jsonl plus a
@@ -54,8 +54,8 @@ def ensure_dataset(workdir, n, seed, mut_rate, n_rate, amb_rate):
 
 
 def run_one(aln, truth, out_prefix, fast, extra_flags):
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import run_inference
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import run_inference
 
     kwargs = dict(input=aln, output=out_prefix, model="UNREST",
                   overwrite=True)
@@ -78,7 +78,7 @@ def run_one(aln, truth, out_prefix, fast, extra_flags):
     rf_cfg = MapleConfig(inputTree=truth,
                          inputRFtrees=out_prefix + "_tree.tree",
                          output=out_prefix + "_rf", overwrite=True)
-    from maple_tpu.analysis.rf import run_rf_mode
+    from maple_jax.analysis.rf import run_rf_mode
     rf_path = run_rf_mode(rf_cfg)
     with open(rf_path) as f:
         header = f.readline().strip().split("\t")
@@ -146,8 +146,8 @@ def run_reference(aln, truth, out_prefix, fast, num_cores=1, timeout=None,
         placing = float(m.group(1))
     with open(out_prefix + "_LK.txt") as f:
         lk = float(f.read().strip())
-    from maple_tpu.analysis.rf import run_rf_mode
-    from maple_tpu.config import MapleConfig
+    from maple_jax.analysis.rf import run_rf_mode
+    from maple_jax.config import MapleConfig
     rf_cfg = MapleConfig(inputTree=truth,
                          inputRFtrees=out_prefix + "_tree.tree",
                          output=out_prefix + "_rf", overwrite=True)

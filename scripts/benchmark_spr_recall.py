@@ -11,7 +11,7 @@ twice (deterministic serial placement), then runs
       contract startTopologyUpdatesParallel
       /root/reference/MAPLEv0.7.5.4.py:9580-9716 + :9470-9484), and
   (b) the device proxy SPR screen pass
-      (maple_tpu/parallel/batch_spr.py),
+      (maple_jax/parallel/batch_spr.py),
 
 with IDENTICAL thresholds, and reports both improvements, move counts,
 and walls — the proxy screen's logLK gain over the serial pass's gain
@@ -34,8 +34,8 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 
 def build_tree(aln, out, cores, budget=0):
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import Run
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import Run
     cfg = MapleConfig(input=aln, output=out, model="UNREST",
                       overwrite=True, numCores=cores,
                       placementBudget=budget)
@@ -55,8 +55,8 @@ def spr_params(run):
 
 
 def run_serial(run, cores):
-    from maple_tpu.native.engine import run_native_spr_parallel
-    from maple_tpu.runtime.tree import set_all_dirty
+    from maple_jax.native.engine import run_native_spr_parallel
+    from maple_jax.runtime.tree import set_all_dirty
     set_all_dirty(run.tree, run.root)
     strict, fails, thr, place = spr_params(run)
     t0 = time.time()
@@ -71,9 +71,9 @@ def run_serial(run, cores):
 
 
 def run_device(run, cores, mesh=None):
-    from maple_tpu.parallel.batch_spr import device_topology_update
-    from maple_tpu.runtime.tree import set_all_dirty
-    from maple_tpu.search.spr import SprCounters
+    from maple_jax.parallel.batch_spr import device_topology_update
+    from maple_jax.runtime.tree import set_all_dirty
+    from maple_jax.search.spr import SprCounters
     set_all_dirty(run.tree, run.root)
     counters = SprCounters()
     t0 = time.time()

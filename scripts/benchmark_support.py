@@ -27,12 +27,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def run_calibration(aln, truth, out_prefix, extra_flags=None):
     """Run SPRTA inference on ``aln`` and calibrate supports against the
     ``truth`` newick.  Returns (table_rows, n_supported_branches)."""
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import run_inference
-    from maple_tpu.io.newick import read_newick
-    from maple_tpu.io.nexus import read_nexus
-    from maple_tpu.analysis.rf import prepare_tree_comparison
-    from maple_tpu.analysis.support_calibration import calibration_table
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import run_inference
+    from maple_jax.io.newick import read_newick
+    from maple_jax.io.nexus import read_nexus
+    from maple_jax.analysis.rf import prepare_tree_comparison
+    from maple_jax.analysis.support_calibration import calibration_table
 
     kwargs = dict(input=aln, output=out_prefix, model="UNREST",
                   overwrite=True, SPRTA=True)

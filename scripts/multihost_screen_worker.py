@@ -46,8 +46,8 @@ def main():
         os.path.abspath(__file__))))
     import jax.numpy as jnp
 
-    from maple_tpu.parallel.mesh import host_fetch, put_global
-    from maple_tpu.parallel.proxy_placer import D
+    from maple_jax.parallel.mesh import host_fetch, put_global
+    from maple_jax.parallel.proxy_placer import D
 
     mesh = Mesh(np.asarray(jax.devices()).reshape(nproc), ("cand",))
     rng = np.random.default_rng(7)

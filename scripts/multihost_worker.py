@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Worker for scripts/benchmark_multihost.py: one jax.distributed
 process of an N-process group sharing a fixed-size global virtual-CPU
-mesh, running the production device placement path (MXU proxy screen
+mesh, running the production device placement path (device proxy screen
 sharded over the candidate axis + replicated engine apply) on a
 synthetic pandemic-scale alignment.
 
@@ -36,8 +36,8 @@ def main():
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import Run
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import Run
 
     # all devices on the candidate axis: the proxy pool's AF matrix
     # shards over it, so the screen matmul is row-parallel across every

@@ -15,7 +15,7 @@ serial re-validated apply (reference applySPRMovesParallel contract,
 :9470-9484) runs identically everywhere.
 
 The worker runs:
-  1. the complete device-batched placement of the 112-sample example
+  1. the complete device-batched placement of the 80-sample example
      over the global mesh, asserting the final likelihood equals the
      in-process host-serial stepwise run EXACTLY (the batched placer is
      decision-exact),
@@ -31,7 +31,7 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXAMPLE = "/root/reference/example_files/MAPLE_alignment_example.txt"
+EXAMPLE = os.path.join(REPO, "tests", "goldens", "example_sub80.maple")
 
 
 def main():
@@ -48,11 +48,11 @@ def main():
     from jax.sharding import Mesh
 
     sys.path.insert(0, REPO)
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.io.newick import create_newick
-    from maple_tpu.parallel.batch_spr import device_topology_update
-    from maple_tpu.pipeline import Run
-    from maple_tpu.search.spr import SprCounters
+    from maple_jax.config import MapleConfig
+    from maple_jax.io.newick import create_newick
+    from maple_jax.parallel.batch_spr import device_topology_update
+    from maple_jax.pipeline import Run
+    from maple_jax.search.spr import SprCounters
 
     mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2), ("dp", "cand"))
 
@@ -79,7 +79,7 @@ def main():
 
     # 2. one device-screened SPR pass (search sharded over the global
     # mesh, serial re-validated apply on every process identically)
-    from maple_tpu.runtime.tree import set_all_dirty
+    from maple_jax.runtime.tree import set_all_dirty
     set_all_dirty(run.tree, run.root)
     params = (cfg.strictTopologyStopRules, cfg.allowedFailsTopology,
               run.dc.thresholdLogLKtopology,

@@ -52,8 +52,8 @@ def main():
 
     sys.path.insert(0, REPO)
     from __graft_entry__ import _example_state
-    from maple_tpu.ops.append_batch import device_model_from, to_device
-    from maple_tpu.parallel.mesh import placement_scores
+    from maple_jax.ops.append_batch import device_model_from, to_device
+    from maple_jax.parallel.mesh import placement_scores
 
     refd, model, dc, P, C = _example_state(n_candidates=64, n_queries=8)
     dm = device_model_from(model, dc, dtype=jnp.float32)

@@ -3,7 +3,7 @@
 
 The reference's --datesFile path crashes on every tested input before
 completing a single run (verified each round; see
-maple_tpu/models/timetree.py module docstring), so end-to-end time-tree
+maple_jax/models/timetree.py module docstring), so end-to-end time-tree
 goldens were previously self-pins.  This script materializes a patched
 COPY of /root/reference/MAPLEv0.7.5.4.py with the five minimal guards
 that make the author's own error-handling reachable — it changes no
@@ -28,7 +28,7 @@ formula, threshold, or search decision:
    missing ``else``.  Patched to skip the two uses when invalid.
 5. Same fall-through for ``altNewMidVectorTime`` at :8165-8168.
 
-These are the same semantics maple_tpu/models/timetree.py implements
+These are the same semantics maple_jax/models/timetree.py implements
 natively (merge_vectors_time guards all four operand failures and
 returns the (marker, -inf) pair), so the patched reference is a valid
 independent oracle for this framework's time-tree runs.

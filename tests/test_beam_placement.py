@@ -12,8 +12,8 @@ import os
 
 import pytest
 
-from maple_tpu.config import MapleConfig
-from maple_tpu.pipeline import Run, run_inference
+from maple_jax.config import MapleConfig
+from maple_jax.pipeline import Run, run_inference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(HERE, "goldens")

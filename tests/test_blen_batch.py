@@ -1,7 +1,7 @@
 """Device batched branch-length optimizer vs the exact host kernel.
 
 The device op golden-sections the batched append scorer (concave in t —
-see maple_tpu/ops/blen_batch.py); the host kernel bisects the analytic
+see maple_jax/ops/blen_batch.py); the host kernel bisects the analytic
 derivative (reference estimateBranchLengthWithDerivative :5040-5358).
 Both must land on the same optimum: either the lengths agree to bracket
 tolerance or the device point scores at least as well (flat-optimum
@@ -15,8 +15,8 @@ import pytest
 
 import jax
 
-from maple_tpu.core import kernels as K
-from maple_tpu.ops import pack as OP
+from maple_jax.core import kernels as K
+from maple_jax.ops import pack as OP
 
 from test_kernels_vs_reference import build_ctx, random_genome_list
 from test_ops_batched import x64, MODES  # noqa: F401  (fixture reuse)
@@ -27,12 +27,12 @@ from test_ops_batched import x64, MODES  # noqa: F401  (fixture reuse)
 def test_batched_blen_matches_host(refmod, x64, model_name, rate_var,
                                    error_mode):
     import jax.numpy as jnp
-    from maple_tpu.ops import append_batch as AB
-    from maple_tpu.ops import blen_batch as BB
+    from maple_jax.ops import append_batch as AB
+    from maple_jax.ops import blen_batch as BB
 
     ctx, rm = build_ctx(refmod, model_name, rate_var, error_mode, seed=21)
-    from maple_tpu.config import DerivedConfig, MapleConfig
-    from maple_tpu.refdata import Model, RefData
+    from maple_jax.config import DerivedConfig, MapleConfig
+    from maple_jax.refdata import Model, RefData
     refd = RefData.build(refmod.ref, model=model_name)
     model = Model.initial(refd, model_name)
     model.mut_matrix = [list(r) for r in ctx.mut_matrix]
@@ -90,11 +90,11 @@ def test_batched_blen_matches_host(refmod, x64, model_name, rate_var,
 def test_paired_scores_vector_blen_chunked(refmod, x64):
     """Vector blen/tips must survive the >_BLOCK row-chunking path."""
     import jax.numpy as jnp
-    from maple_tpu.ops import append_batch as AB
+    from maple_jax.ops import append_batch as AB
 
     ctx, rm = build_ctx(refmod, "GTR", False, "none", seed=8)
-    from maple_tpu.config import DerivedConfig, MapleConfig
-    from maple_tpu.refdata import Model, RefData
+    from maple_jax.config import DerivedConfig, MapleConfig
+    from maple_jax.refdata import Model, RefData
     refd = RefData.build(refmod.ref, model="GTR")
     model = Model.initial(refd, "GTR")
     model.mut_matrix = [list(r) for r in ctx.mut_matrix]

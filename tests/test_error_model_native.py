@@ -12,14 +12,14 @@ import os
 
 import pytest
 
-from maple_tpu.config import MapleConfig
-from maple_tpu.pipeline import run_inference
+from maple_jax.config import MapleConfig
+from maple_jax.pipeline import run_inference
 
 HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "goldens")
 B3000 = os.path.join(HERE, "data_b1429_3000.maple.gz")
 
-native = pytest.importorskip("maple_tpu.native")
+native = pytest.importorskip("maple_jax.native")
 if not native.native_available():
     pytest.skip("native library unavailable", allow_module_level=True)
 
@@ -28,8 +28,8 @@ def test_tagged_passthrough_merge_drifts_with_patch():
     """A tagged O entry copied through an O-vs-N merge branch must follow
     later patches of its shared list, exactly like the Python kernels'
     list reuse."""
-    from maple_tpu.config import DerivedConfig
-    from maple_tpu.refdata import Model, RefData
+    from maple_jax.config import DerivedConfig
+    from maple_jax.refdata import Model, RefData
 
     ref = "ACGT" * 25
     refd = RefData.build(ref, model="JC")

@@ -97,7 +97,7 @@ import numpy as np
 import jax.numpy as jnp
 sys.path.insert(0, {REPO!r})
 from __graft_entry__ import _example_state
-from maple_tpu.ops.append_batch import device_model_from, to_device, \\
+from maple_jax.ops.append_batch import device_model_from, to_device, \\
     grid_append_scores
 refd, model, dc, P, C = _example_state(n_candidates=64, n_queries=8)
 dm = device_model_from(model, dc, dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""Differential fuzzing of maple_tpu.core.kernels against the reference
+"""Differential fuzzing of maple_jax.core.kernels against the reference
 implementation (imported as a module and used as an oracle).
 
 Every hot kernel is driven with randomized — but structurally valid — genome
@@ -11,10 +11,10 @@ import random
 
 import pytest
 
-from maple_tpu.config import DerivedConfig, MapleConfig
-from maple_tpu.core import genomelist as gl
-from maple_tpu.core import kernels as K
-from maple_tpu.refdata import Model, RefData
+from maple_jax.config import DerivedConfig, MapleConfig
+from maple_jax.core import genomelist as gl
+from maple_jax.core import kernels as K
+from maple_jax.refdata import Model, RefData
 
 
 # ---------------------------------------------------------------- helpers

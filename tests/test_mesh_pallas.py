@@ -1,15 +1,14 @@
-"""Sharded Pallas scoring on the virtual 8-device CPU mesh.
+"""Sharded scoring on the virtual 8-device CPU mesh.
 
-placement_scores_pallas (shard_map + ops/pallas_append, interpret mode on
-CPU) must reproduce the XLA mesh scorer tile-for-tile: same [K, N] score
-matrix up to float32 summation order.
+The mesh scorers (parallel/mesh.py) must reproduce the unsharded kernels:
+same [K, N] score matrix up to float32 summation order.
 """
 import random
 
 import numpy as np
 
-from maple_tpu.config import DerivedConfig, MapleConfig
-from maple_tpu.refdata import Model, RefData
+from maple_jax.config import DerivedConfig, MapleConfig
+from maple_jax.refdata import Model, RefData
 
 
 def _rand_list(rng, lRef):
@@ -30,13 +29,16 @@ def _rand_list(rng, lRef):
     return entries
 
 
-def test_mesh_pallas_matches_xla_scorer():
+def test_mesh_scorer_matches_pair_kernel():
+    """The (dp x cand)-sharded interval-algebra scorer and the unsharded
+    entry-pair kernel (ops/pair_scores.py) give the same [K, N] matrix up
+    to float32 summation order."""
     import jax
     import jax.numpy as jnp
-    from maple_tpu.ops import pack as OP
-    from maple_tpu.ops.append_batch import device_model_from, to_device
-    from maple_tpu.parallel.mesh import (make_mesh, placement_scores,
-                                         placement_scores_pallas,
+    from maple_jax.ops import pack as OP
+    from maple_jax.ops.append_batch import device_model_from, to_device
+    from maple_jax.ops.pair_scores import grid_pair_scores
+    from maple_jax.parallel.mesh import (make_mesh, placement_scores,
                                          shard_batch)
 
     assert len(jax.devices()) == 8
@@ -57,18 +59,15 @@ def test_mesh_pallas_matches_xla_scorer():
         cands, refd.lRef, B, False, dtype=np.float32), dtype=jnp.float32)
     Q = to_device(OP.pack_genome_lists(
         queries, refd.lRef, B, False, dtype=np.float32), dtype=jnp.float32)
+    pair = np.asarray(grid_pair_scores(pool, Q, dc.oneMutBLen, True, dm))
     pool_dev, q_dev = shard_batch(mesh, pool, Q)
-
     xla = np.asarray(placement_scores(mesh, pool_dev, q_dev,
                                       dc.oneMutBLen, dm))
-    pal = np.asarray(placement_scores_pallas(mesh, pool_dev, q_dev,
-                                             dc.oneMutBLen, dm,
-                                             interpret=True))
-    assert pal.shape == xla.shape == (8, 64)
-    finite = np.isfinite(pal) & np.isfinite(xla)
-    assert np.array_equal(np.isfinite(pal), np.isfinite(xla))
+    assert pair.shape == xla.shape == (8, 64)
+    finite = np.isfinite(pair) & np.isfinite(xla)
+    assert np.array_equal(np.isfinite(pair), np.isfinite(xla))
     assert finite.sum() > 0
-    np.testing.assert_allclose(pal[finite], xla[finite],
+    np.testing.assert_allclose(pair[finite], xla[finite],
                                rtol=2e-4, atol=2e-3)
 
 
@@ -79,10 +78,10 @@ def test_genome_axis_sharded_scorer_matches_unsharded():
     error model active so the tables actually vary along the genome."""
     import jax
     import jax.numpy as jnp
-    from maple_tpu.ops import pack as OP
-    from maple_tpu.ops.append_batch import (device_model_from,
+    from maple_jax.ops import pack as OP
+    from maple_jax.ops.append_batch import (device_model_from,
                                             grid_append_scores, to_device)
-    from maple_tpu.parallel.mesh import (make_genome_mesh,
+    from maple_jax.parallel.mesh import (make_genome_mesh,
                                          placement_scores_genome_sharded)
 
     assert len(jax.devices()) == 8

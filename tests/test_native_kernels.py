@@ -4,13 +4,13 @@ import random
 
 import pytest
 
-from maple_tpu.config import DerivedConfig, MapleConfig
-from maple_tpu.core import kernels as K
-from maple_tpu.refdata import Model, RefData
+from maple_jax.config import DerivedConfig, MapleConfig
+from maple_jax.core import kernels as K
+from maple_jax.refdata import Model, RefData
 
 from test_kernels_vs_reference import build_ctx, random_genome_list
 
-native = pytest.importorskip("maple_tpu.native")
+native = pytest.importorskip("maple_jax.native")
 if not native.native_available():
     pytest.skip("native library unavailable", allow_module_level=True)
 
@@ -89,7 +89,7 @@ def test_native_roundtrip_and_merge(refmod, model_name, rate_var,
 
 @pytest.mark.parametrize("model_name,rate_var,error_mode", MODES)
 def test_native_blen_pass_root(refmod, model_name, rate_var, error_mode):
-    from maple_tpu.core import genomelist as gl
+    from maple_jax.core import genomelist as gl
     ctx, store = make_store(refmod, model_name, rate_var, error_mode, 31)
     rng = random.Random(77)
     for trial in range(60):

@@ -1,4 +1,4 @@
-"""Batched device append-score kernel vs the exact host kernel.
+"""Batched device append-score kernel vs the exact native host kernel.
 
 Run on CPU in float64 (x64 enabled per-test) so the only differences are
 summation order; tolerance is tight."""
@@ -10,10 +10,9 @@ import pytest
 
 import jax
 
-from maple_tpu.config import DerivedConfig, MapleConfig
-from maple_tpu.core import kernels as K
-from maple_tpu.ops import pack as OP
-from maple_tpu.refdata import Model, RefData
+from maple_jax.config import DerivedConfig, MapleConfig
+from maple_jax.ops import pack as OP
+from maple_jax.refdata import Model, RefData
 
 from test_kernels_vs_reference import build_ctx, random_genome_list
 
@@ -30,13 +29,15 @@ MODES = [("GTR", False, "none"), ("GTR", True, "none"),
 
 
 @pytest.mark.parametrize("model_name,rate_var,error_mode", MODES)
-def test_batched_append_matches_host(refmod, x64, model_name, rate_var,
+def test_batched_append_matches_host(refgenome, x64, model_name, rate_var,
                                      error_mode):
     import jax.numpy as jnp
-    from maple_tpu.ops import append_batch as AB
+    from maple_jax.native import NativeStore
+    from maple_jax.ops import append_batch as AB
 
-    ctx, rm = build_ctx(refmod, model_name, rate_var, error_mode, seed=11)
-    refd = RefData.build(refmod.ref, model=model_name)
+    ctx, rm = build_ctx(refgenome, model_name, rate_var, error_mode,
+                        seed=11)
+    refd = RefData.build(refgenome.ref, model=model_name)
     model = Model.initial(refd, model_name)
     # mirror ctx state into a Model for device_model_from
     model.mut_matrix = [list(r) for r in ctx.mut_matrix]
@@ -53,6 +54,16 @@ def test_batched_append_matches_host(refmod, x64, model_name, rate_var,
     cfg = MapleConfig(model=model_name)
     dc = DerivedConfig.build(cfg, refd.lRef)
     dm = AB.device_model_from(model, dc, dtype=jnp.float64)
+    import test_kernels_vs_reference as tk
+    store = NativeStore(refd, dc)
+    store.sync_model(tk.last_built_model[0])
+
+    def host_score(cand, query, tip, blen):
+        vP, vC = store.from_tuples(cand), store.from_tuples(query)
+        score = store.append(vP, vC, tip, blen)
+        store.release(vP)
+        store.release(vC)
+        return score
 
     rng = random.Random(7)
     n_checked = 0
@@ -63,7 +74,7 @@ def test_batched_append_matches_host(refmod, x64, model_name, rate_var,
         query = random_genome_list(rng, ctx.lRef, ctx.using_error_rate)
         blen = rng.choice([0.0, 3.3e-5, 1e-4])
         tip = rng.random() < 0.5
-        host = [K.append_prob_node(ctx, c, query, tip, blen) for c in cands]
+        host = [host_score(c, query, tip, blen) for c in cands]
         B = OP.budget_for(cands + [query])
         P = AB.to_device(OP.pack_genome_lists(
             cands, ctx.lRef, B, ctx.using_error_rate), dtype=jnp.float64)

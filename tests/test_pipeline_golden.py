@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from maple_tpu.config import MapleConfig
-from maple_tpu.pipeline import run_inference
+from maple_jax.config import MapleConfig
+from maple_jax.pipeline import run_inference
 
 EXAMPLE = "/root/reference/example_files/MAPLE_alignment_example.txt"
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
@@ -347,7 +347,7 @@ def test_parallel_spr_golden(tmp_path):
                       inputTree=os.path.join(par, "random_input.tree"),
                       largeUpdate=True, model="GTR", numCores=3,
                       output=out, overwrite=True)
-    import maple_tpu.search.parallel_spr as ps
+    import maple_jax.search.parallel_spr as ps
     fork_calls = []
     orig = ps.parallel_topology_update
     ps.parallel_topology_update = \

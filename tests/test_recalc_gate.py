@@ -3,8 +3,8 @@ recompute is skipped exactly when nothing mutated since the last one —
 and never skipped after a mutation, a model change, or a re-root."""
 import os
 
-from maple_tpu.config import MapleConfig
-from maple_tpu.pipeline import Run
+from maple_jax.config import MapleConfig
+from maple_jax.pipeline import Run
 
 EXAMPLE = "/root/reference/example_files/MAPLE_alignment_example.txt"
 

@@ -49,7 +49,7 @@ def test_analyse_mnms(tmp_path):
     ctx = tmp_path / "ctx.tsv"
     _run("analyse_mnms.py", "--inputTSV", tsv, "--thresholdProb", "0.5",
          "--reference",
-         "/root/reference/example_files/MAPLE_alignment_example.txt",
+         os.path.join(HERE, "goldens", "example_sub80.maple"),
          "--output", str(out), "--contextOutput", str(ctx))
     body = out.read_text()
     assert body.startswith("MNM\tsize\toccurrences\texpected\tp_poisson")

@@ -12,8 +12,8 @@ import os
 
 import pytest
 
-from maple_tpu.config import MapleConfig
-from maple_tpu.pipeline import run_inference
+from maple_jax.config import MapleConfig
+from maple_jax.pipeline import run_inference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATES = os.path.join(HERE, "goldens", "dates_mild.tsv")

@@ -30,7 +30,7 @@ DATES = os.path.join(GOLDEN, "dates_clock.tsv")
 
 def _run_cli(out, *args):
     r = subprocess.run(
-        [sys.executable, "-m", "maple_tpu", "--input", EXAMPLE,
+        [sys.executable, "-m", "maple_jax", "--input", EXAMPLE,
          "--output", out, "--model", "GTR", "--overwrite",
          "--datesFile", DATES, *args],
         capture_output=True, text=True,

@@ -6,7 +6,7 @@ import textwrap
 import pytest
 
 from conftest import REFERENCE_PATH, load_reference_module
-from maple_tpu.models.timetree import (TimeCtx, append_prob_node_time,
+from maple_jax.models.timetree import (TimeCtx, append_prob_node_time,
                                        are_vectors_different_time,
                                        is_minor_date, merge_vectors_time,
                                        read_dates, root_vector_time,
@@ -211,15 +211,16 @@ def test_timetree_end_to_end(tmp_path):
     mutation-rate EM, time LK in _LK.txt.  (No reference oracle: the
     reference's own time path crashes on unguarded -inf unpacks.)"""
     import os
-    from maple_tpu.config import MapleConfig
-    from maple_tpu.pipeline import run_inference
+    from maple_jax.config import MapleConfig
+    from maple_jax.pipeline import run_inference
     dates = os.path.join(os.path.dirname(__file__), "goldens",
                          "dates_mild.tsv")
     if not os.path.isfile(dates):
         pytest.skip("dates fixture missing")
     out = str(tmp_path / "run")
     cfg = MapleConfig(
-        input="/root/reference/example_files/MAPLE_alignment_example.txt",
+        input=os.path.join(os.path.dirname(__file__), "goldens",
+                           "example_sub80.maple"),
         datesFile=dates, intervalLength=30, model="GTR", output=out,
         overwrite=True)
     run_inference(cfg)
